@@ -1,7 +1,7 @@
-// kpt_native — host-native runtime pieces of kylespathtracer_tpu.
+// kpt_native — host-native runtime pieces of kylespathtracer.
 //
 // The reference's host layer is C++ plumbing around the GPU (window, GL
-// resources, shader IO: render.cpp, shader.cpp, main.cpp). The TPU build
+// resources, shader IO: render.cpp, shader.cpp, main.cpp). The JAX build
 // drives XLA's C++ runtime (PJRT) for device plumbing, so the genuinely
 // native pieces here are the ones JAX does not provide:
 //

@@ -17,14 +17,14 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from kylespathtracer_tpu.parallel import multihost  # noqa: E402
+from kylespathtracer.parallel import multihost  # noqa: E402
 
 assert multihost.initialize_from_env(), "env did not request multihost"
 
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-from kylespathtracer_tpu.parallel import mesh as mesh_mod  # noqa: E402
+from kylespathtracer.parallel import mesh as mesh_mod  # noqa: E402
 
 info = multihost.process_info()
 assert info["process_count"] == 2, info

@@ -4,17 +4,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from kylespathtracer_tpu.app.controller import (
+from kylespathtracer.app.controller import (
     ControllerState,
     InputFrame,
     update_controller,
     ACCEL_SPEED,
     MAX_SPEED,
 )
-from kylespathtracer_tpu.app.driver import render_animation, spline_cameras, playback_cameras
-from kylespathtracer_tpu.scene.scene import default_scene
-from kylespathtracer_tpu.utils.config import RenderConfig
-from kylespathtracer_tpu.core import gmath
+from kylespathtracer.app.driver import render_animation, spline_cameras, playback_cameras
+from kylespathtracer.scene.scene import default_scene
+from kylespathtracer.utils.config import RenderConfig
+from kylespathtracer.core import gmath
 
 
 def test_controller_forward_motion():
@@ -90,7 +90,7 @@ def test_spline_cameras_loop():
 
 
 def test_image_io_roundtrip(tmp_path):
-    from kylespathtracer_tpu.utils import image_io
+    from kylespathtracer.utils import image_io
 
     img = np.random.default_rng(0).random((16, 20, 3)).astype(np.float32)
     p = tmp_path / "x.png"
@@ -102,9 +102,9 @@ def test_image_io_roundtrip(tmp_path):
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from kylespathtracer_tpu.utils import checkpoint as ck
-    from kylespathtracer_tpu.render.pipeline import init_history
-    from kylespathtracer_tpu.render.camera import Camera
+    from kylespathtracer.utils import checkpoint as ck
+    from kylespathtracer.render.pipeline import init_history
+    from kylespathtracer.render.camera import Camera
 
     h = init_history(RenderConfig(width=8, height=8), Camera.create())
     ck.save(tmp_path, 7, {"history": h})
@@ -121,7 +121,7 @@ def test_terminal_preview_ansi():
 
     import numpy as np
 
-    from kylespathtracer_tpu.utils.preview import TerminalPreview, frame_to_ansi
+    from kylespathtracer.utils.preview import TerminalPreview, frame_to_ansi
 
     img = np.random.default_rng(0).random((48, 64, 3)).astype(np.float32)
     s = frame_to_ansi(img, max_w=32, max_h=12)
@@ -134,7 +134,7 @@ def test_terminal_preview_ansi():
 
 
 def test_fly_parse_keys():
-    from kylespathtracer_tpu.app.fly import ARROW_PX, parse_keys
+    from kylespathtracer.app.fly import ARROW_PX, parse_keys
 
     move, look, q = parse_keys(b"w")
     assert move == [0.0, 0.0, 1.0] and look == [0.0, 0.0] and not q
@@ -151,11 +151,11 @@ def test_fly_step_moves_camera():
     """One fly step: key intent moves the camera and renders a frame."""
     import jax.numpy as jnp
 
-    from kylespathtracer_tpu.app.controller import ControllerState, InputFrame
-    from kylespathtracer_tpu.app.fly import fly_step, parse_keys
-    from kylespathtracer_tpu.render.pipeline import init_history
-    from kylespathtracer_tpu.scene import default_scene
-    from kylespathtracer_tpu.utils.config import RenderConfig
+    from kylespathtracer.app.controller import ControllerState, InputFrame
+    from kylespathtracer.app.fly import fly_step, parse_keys
+    from kylespathtracer.render.pipeline import init_history
+    from kylespathtracer.scene import default_scene
+    from kylespathtracer.utils.config import RenderConfig
 
     cfg = RenderConfig(width=32, height=24)
     scene = default_scene()
@@ -177,9 +177,9 @@ def test_render_animation_resume_matches_uninterrupted(tmp_path):
     import numpy as np
     import jax.numpy as jnp
 
-    from kylespathtracer_tpu.app.driver import render_animation
-    from kylespathtracer_tpu.scene import default_scene
-    from kylespathtracer_tpu.utils.config import RenderConfig
+    from kylespathtracer.app.driver import render_animation
+    from kylespathtracer.scene import default_scene
+    from kylespathtracer.utils.config import RenderConfig
 
     scene = default_scene()
     cfg = RenderConfig(width=32, height=24)

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kylespathtracer_tpu.core import color, gmath, sampler
-from kylespathtracer_tpu.cpu_reference import glslref as ref
+from kylespathtracer.core import color, gmath, sampler
+from kylespathtracer.cpu_reference import glslref as ref
 
 RNG = np.random.default_rng(0)
 
@@ -168,7 +168,7 @@ if __name__ == "__main__":
 def test_fold_seed_decorrelate():
     import jax.numpy as jnp
 
-    from kylespathtracer_tpu.core import sampler
+    from kylespathtracer.core import sampler
 
     seed = jnp.arange(16, dtype=jnp.int32)
     # Default/parity: plain offset; sample 0 identical in both modes.
@@ -193,10 +193,10 @@ def test_weyl_lattice_beats_hashed_streams():
     import jax.numpy as jnp
     import numpy as np
 
-    from kylespathtracer_tpu.render.camera import Camera
-    from kylespathtracer_tpu.render.pipeline import init_history, render_frame
-    from kylespathtracer_tpu.scene import default_scene
-    from kylespathtracer_tpu.utils.config import RenderConfig
+    from kylespathtracer.render.camera import Camera
+    from kylespathtracer.render.pipeline import init_history, render_frame
+    from kylespathtracer.scene import default_scene
+    from kylespathtracer.utils.config import RenderConfig
 
     scene = default_scene()
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))

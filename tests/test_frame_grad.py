@@ -1,11 +1,10 @@
 """Differentiable fused frame (ops/frame_grad.py).
 
-Fast default-suite tests exercise the kernel MATH through
-`frame_kernel.frame_forward_jnp` — the same `frame_block` the Pallas
-kernels run, evaluated as plain jnp (no interpret-mode overhead) — against
-the XLA pass pipeline, forward and backward. The Pallas plumbing itself
-(block specs, operand order, grid accumulation) is covered by the slow
-interpret test at the bottom and by the TPU bench.
+The kernel MATH is checked through `frame_kernel.frame_forward_jnp` — the
+same `frame_block` the Triton kernel runs, as plain jnp — against the XLA
+pass pipeline, forward and backward. The custom VJP itself (Triton forward
+in interpret mode or the XLA forward, the chunked XLA backward, symbolic
+zero pruning) is checked against the pass pipeline and plain `jax.grad`.
 """
 
 import numpy as np
@@ -13,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from kylespathtracer_tpu.diff import inverse
-from kylespathtracer_tpu.ops import frame_grad as fg
-from kylespathtracer_tpu.ops import frame_kernel as fk
-from kylespathtracer_tpu.render.camera import Camera
-from kylespathtracer_tpu.render.pipeline import init_history, render_frame
-from kylespathtracer_tpu.scene import default_scene
-from kylespathtracer_tpu.utils.config import RenderConfig
+from kylespathtracer.diff import inverse
+from kylespathtracer.ops import frame_grad as fg
+from kylespathtracer.ops import frame_kernel as fk
+from kylespathtracer.render.camera import Camera
+from kylespathtracer.render.pipeline import init_history, render_frame
+from kylespathtracer.scene import default_scene
+from kylespathtracer.utils.config import RenderConfig
 
 W, H = 64, 48
 LOC = (3.0, 2.0, -3.0)
@@ -28,8 +27,8 @@ FRAME = jnp.asarray(0, jnp.int32)
 
 
 def _image_from_planes(out, cfg):
-    from kylespathtracer_tpu.render import composite as comp_mod
-    from kylespathtracer_tpu.render.passes import Channel
+    from kylespathtracer.render import composite as comp_mod
+    from kylespathtracer.render.passes import Channel
 
     ones = jnp.ones(out["oid"].shape, jnp.float32)
     d = Channel(rgb=out["add_d"], cnt=ones, oid=out["oid"])
@@ -156,43 +155,133 @@ def test_frame_block_grads_match_xla(soft):
         np.testing.assert_allclose(b, a, atol=2e-3 * scale, err_msg=k)
 
 
-@pytest.mark.slow
-def test_backward_kernel_matches_jnp_interpret():
-    """The backward Pallas kernel (interpret mode) reproduces plain-jnp
-    gradients of the same block function — validates operand order, the
-    cotangent plumbing and the cross-block accumulation."""
+def _sphere_scene_and_camera():
+    """Two spheres, floor and light, no box: the inverse fit's kind of
+    scene, whose frame compiles and runs much faster on the CPU."""
+    from kylespathtracer.scene.scene import sphere_scene
+
+    scene = sphere_scene([[0.0, 1.0, 6.0], [2.0, 1.2, 7.0]], [1.0, 0.8],
+                         [[0.7, 0.3, 0.2], [0.2, 0.5, 0.6]])
+    return scene, Camera.create(loc=(0.0, 2.0, 0.0), orient=(0.0, 0.0))
+
+
+def _loss_planes(out):
+    return jnp.mean(out["add_d"]) + jnp.mean(out["add_s"]) + jnp.mean(
+        out["alb"]
+    ) + jnp.mean(out["ene"]) + jnp.mean(out["depth"]) * 0.01
+
+
+def test_custom_vjp_grads_match_plain_grad():
+    """Triton forward (interpret) + chunked XLA backward == plain jax.grad
+    of frame_forward_jnp, for the scene tables and the camera, on a loss
+    touching every float plane."""
     scene = default_scene()
     cam = Camera.create(loc=LOC, orient=ORI)
-    w, h = 48, 16
-    cfg = RenderConfig(width=w, height=h, no_history=True)
+    cfg = RenderConfig(width=32, height=8, no_history=True)
 
-    def loss_jnp(scene, cam):
-        out = fk.frame_forward_jnp(scene, cam, FRAME, cfg)
-        return jnp.mean(out["add_d"]) + jnp.mean(out["add_s"]) + jnp.mean(
-            out["alb"]
-        ) + jnp.mean(out["ene"]) + jnp.mean(out["depth"]) * 0.01
-
-    def loss_pal(scene, cam):
-        out = fg.frame_forward(scene, cam, FRAME, cfg, interpret=True)
-        return jnp.mean(out["add_d"]) + jnp.mean(out["add_s"]) + jnp.mean(
-            out["alb"]
-        ) + jnp.mean(out["ene"]) + jnp.mean(out["depth"]) * 0.01
-
-    g_ref = jax.grad(loss_jnp, argnums=(0, 1), allow_int=True)(scene, cam)
-    g_pal = jax.grad(loss_pal, argnums=(0, 1), allow_int=True)(scene, cam)
-
+    g_ref = jax.grad(
+        lambda s, c: _loss_planes(fk.frame_forward_jnp(s, c, FRAME, cfg)),
+        argnums=(0, 1), allow_int=True,
+    )(scene, cam)
+    g_vjp = jax.grad(
+        lambda s, c: _loss_planes(
+            fg.frame_forward(s, c, FRAME, cfg, interpret=True)
+        ),
+        argnums=(0, 1), allow_int=True,
+    )(scene, cam)
     for name in ("planes", "spheres", "boxes", "light_color"):
         a = np.asarray(getattr(g_ref[0], name))
-        b = np.asarray(getattr(g_pal[0], name))
+        b = np.asarray(getattr(g_vjp[0], name))
         np.testing.assert_allclose(
             b, a, atol=1e-5 * (np.abs(a).max() + 1e-6), err_msg=name
         )
-    # Magnitude-scaled atol, not rtol: cross-block accumulation reorders the
-    # sum, so small components carry absolute noise. Round 3 measured the
-    # camera-loc accumulation noise at 2.7e-6 abs / 5.5e-5 rel (atol 2e-5·max
-    # missed it by 1.5x); 1e-4·max gives 3x margin over the measured noise
-    # while still catching a genuinely wrong gradient (typically off by >1%).
     a = np.asarray(g_ref[1].loc)
     np.testing.assert_allclose(
-        np.asarray(g_pal[1].loc), a, atol=1e-4 * (np.abs(a).max() + 1e-6)
+        np.asarray(g_vjp[1].loc), a, atol=1e-4 * (np.abs(a).max() + 1e-6)
     )
+
+
+def _fused_vs_pass_grads(cfg):
+    """value_and_grad of the image MSE through pipeline="fused" (the
+    custom VJP) against pipeline="pass", on the inverse fit's parameters
+    and a sphere scene like the fit's."""
+    import dataclasses
+
+    scene, cam = _sphere_scene_and_camera()
+    target = jnp.full((cfg.height, cfg.width, 3), 0.3, jnp.float32)
+    params = inverse.extract_params(scene)
+    out = {}
+    for pipeline in ("fused", "pass"):
+        c = dataclasses.replace(cfg, pipeline=pipeline)
+        out[pipeline] = jax.jit(jax.value_and_grad(
+            lambda p: inverse.loss_fn(p, scene, cam, target, FRAME, c)
+        ))(params)
+    (v_f, g_f), (v_p, g_p) = out["fused"], out["pass"]
+    np.testing.assert_allclose(float(v_f), float(v_p), rtol=1e-5)
+    for k in params:
+        a, b = np.asarray(g_p[k]), np.asarray(g_f[k])
+        assert np.isfinite(b).all(), k
+        np.testing.assert_allclose(
+            b, a, atol=2e-3 * (np.abs(a).max() + 1e-8), err_msg=k
+        )
+
+
+def test_custom_vjp_grads_production_inverse_config():
+    """soft_shadows>0 AND smp>1 combined — the configuration the inverse
+    fit runs (diff/inverse.py anneals a soft-shadow beta; multi-sample
+    steps share the fused frame) — through the custom VJP, against the
+    pass pipeline's value and gradients."""
+    smp2 = {f"smp_{k}": 2 for k in (
+        "direct_lambert", "lambert_surface_lambert", "lambert_surface_phong",
+        "direct_phong", "phong_surface_lambert", "phong_surface_phong")}
+    _fused_vs_pass_grads(
+        RenderConfig(width=W, height=H, no_history=True, soft_shadows=0.05,
+                     **smp2)
+    )
+
+
+def test_symbolic_zero_pruning(monkeypatch):
+    """A depth-only loss hands the backward only the depth cotangent (the
+    other planes arrive as symbolic zeros and are pruned), and its
+    gradients equal plain jax.grad of the same loss."""
+    scene, cam = _sphere_scene_and_camera()
+    cfg = RenderConfig(width=32, height=16, no_history=True)
+    seen = []
+    real = fg.frame_backward
+
+    def spy(scene, camera, frame, g, config, **kw):
+        seen.append(sorted(k for k, v in g.items() if v is not None))
+        return real(scene, camera, frame, g, config, **kw)
+
+    monkeypatch.setattr(fg, "frame_backward", spy)
+    g_vjp = jax.grad(lambda s: jnp.mean(
+        fg.frame_forward(s, cam, FRAME, cfg)["depth"]), allow_int=True)(scene)
+    g_ref = jax.grad(lambda s: jnp.mean(
+        fk.frame_forward_jnp(s, cam, FRAME, cfg)["depth"]), allow_int=True)(scene)
+    assert seen == [["depth"]]
+    for name in ("planes", "spheres"):
+        a = np.asarray(getattr(g_ref, name))
+        np.testing.assert_allclose(
+            np.asarray(getattr(g_vjp, name)), a,
+            atol=1e-6 * (np.abs(a).max() + 1e-6), err_msg=name,
+        )
+    assert not np.asarray(g_vjp.light_color).any()
+
+
+def test_chunked_backward_matches_one_chunk():
+    """Row chunks (lax.map over 4 chunks, summed) give the gradients of a
+    single chunk over the whole image, and a chunk must divide the rows."""
+    scene, cam = _sphere_scene_and_camera()
+    cfg = RenderConfig(width=32, height=16, no_history=True)
+    out = fk.frame_forward_jnp(scene, cam, FRAME, cfg)
+    g = {k: jnp.ones_like(v) for k, v in out.items() if k != "oid"}
+    one = fg.frame_backward(scene, cam, FRAME, g, cfg, chunk=16)
+    four = fg.frame_backward(scene, cam, FRAME, g, cfg, chunk=4)
+    for a, b in zip(one, four):
+        np.testing.assert_allclose(
+            np.asarray(b), np.asarray(a),
+            atol=1e-5 * (np.abs(np.asarray(a)).max() + 1e-6),
+        )
+    assert fg.chunk_rows(1080, 1920) == 270
+    with pytest.raises(ValueError, match="divide"):
+        fg.frame_backward(scene, cam, FRAME, g, cfg, chunk=5)

@@ -1,22 +1,23 @@
-"""Fused full-frame kernel (ops/frame_kernel.py) vs the unfused pipeline,
-and analytic normals (scene/normals.py) vs the tetrahedron estimator.
+"""Fused full frame (ops/frame_kernel.py) vs the unfused pipeline, and
+analytic normals (scene/normals.py) vs the tetrahedron estimator.
 
-The Pallas kernel runs in interpret mode on CPU; differences vs the XLA
-path are pure float-association ulps, which only matter where they flip a
-decision boundary (roulette CDF pick, checker floor, ID match)."""
+On the CPU the fused frame runs its XLA twin (ops/platform.py); the Triton
+kernel runs in interpret mode where a test asks for it. Differences vs the
+pass pipeline are pure float-association ulps, which only matter where they
+flip a decision boundary (roulette CDF pick, checker floor, ID match)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kylespathtracer_tpu.ops import frame_kernel as fk
-from kylespathtracer_tpu.render import gbuffer as gbm
-from kylespathtracer_tpu.render.camera import Camera
-from kylespathtracer_tpu.render.pipeline import init_history, render_frame
-from kylespathtracer_tpu.scene import default_scene
-from kylespathtracer_tpu.scene import normals as nrm_mod
-from kylespathtracer_tpu.scene import sdf as sdf_mod
-from kylespathtracer_tpu.utils.config import RenderConfig
+from kylespathtracer.ops import frame_kernel as fk
+from kylespathtracer.render import gbuffer as gbm
+from kylespathtracer.render.camera import Camera
+from kylespathtracer.render.pipeline import init_history, render_frame
+from kylespathtracer.scene import default_scene
+from kylespathtracer.scene import normals as nrm_mod
+from kylespathtracer.scene import sdf as sdf_mod
+from kylespathtracer.utils.config import RenderConfig
 
 W, H = 48, 32
 LOC = (3.0, 2.0, -3.0)
@@ -73,8 +74,8 @@ def test_fused_frame_matches_pass_image():
     ids=["unbiased", "smp2"],
 )
 def test_fused_temporal_quality_configs_match_pass(quality):
-    """Quality-config parity for the fully fused TEMPORAL kernel
-    (ops/frame_hist.py), not just the single-frame kernel: the unbiased
+    """Quality-config parity for the fused TEMPORAL frame, not just the
+    single-frame forward: the unbiased
     ground-truth estimators (biased=False, common.glsl:394-415) and smp_*=2
     must agree with the pass pipeline over a 3-frame moving sequence where
     the second and third frames reproject real accumulated history.
@@ -113,12 +114,42 @@ def test_fused_temporal_quality_configs_match_pass(quality):
     assert (d > 3e-2).mean() < 0.03, f"{(d > 3e-2).mean():.3%} differ"
 
 
+def test_fused_temporal_matches_pass():
+    """Two frames under a moving camera: the second reprojects real
+    accumulated history through the exact gather on both pipelines. The
+    fused frame's image and history agree with the pass pipeline's up to
+    decision-boundary flips."""
+    scene = default_scene()
+    cam0 = Camera.create(loc=LOC, orient=ORI)
+    cams = [cam0, cam0.replace(
+        orient=cam0.orient + jnp.asarray([-0.01, 0.002], jnp.float32),
+        loc=cam0.loc + jnp.asarray([0.001, 0.0, 0.001], jnp.float32),
+    )]
+    out = {}
+    for name in ("pass", "fused"):
+        cfg = RenderConfig(width=W, height=H, pipeline=name)
+        hist = init_history(cfg, cams[0])
+        for i, cam in enumerate(cams):
+            img, hist = render_frame(
+                scene, cam, hist, jnp.asarray(i, jnp.int32), cfg
+            )
+        out[name] = (np.asarray(img), hist)
+    (img_f, hist_f), (img_p, hist_p) = out["fused"], out["pass"]
+    assert np.isfinite(img_f).all()
+    assert float(np.mean(np.asarray(hist_f.diffuse.cnt))) > 1.5
+    assert (np.asarray(hist_f.diffuse.oid)
+            == np.asarray(hist_p.diffuse.oid)).mean() > 0.999
+    d = np.abs(img_p - img_f)
+    assert np.median(d) < 1e-5
+    assert (d > 3e-2).mean() < 0.01, f"{(d > 3e-2).mean():.3%} differ"
+
+
 def test_analytic_normals_match_tetra():
     scene = default_scene()
     cam = Camera.create(loc=LOC, orient=ORI)
     cfg = RenderConfig(width=W, height=H)
     gb = gbm.geometry_pass(scene, cam, cfg)  # analytic normals by default
-    from kylespathtracer_tpu.render.camera import ray_dirs
+    from kylespathtracer.render.camera import ray_dirs
 
     rd = ray_dirs(cam, W, H)
     hl = cam.loc + rd * (gb.depth[..., None] + 1e-3)

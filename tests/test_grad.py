@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from kylespathtracer_tpu.diff import inverse
-from kylespathtracer_tpu.render.camera import Camera
-from kylespathtracer_tpu.scene.scene import sphere_scene
-from kylespathtracer_tpu.utils.config import RenderConfig
+from kylespathtracer.diff import inverse
+from kylespathtracer.render.camera import Camera
+from kylespathtracer.scene.scene import sphere_scene
+from kylespathtracer.utils.config import RenderConfig
 
 CFG = RenderConfig(width=48, height=32)
 CAM = Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.15, 0.0))

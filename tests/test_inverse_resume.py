@@ -3,13 +3,13 @@
 
 Mirrors tests/test_app.py's render-resume determinism test: the scene and
 camera initialization is a pure function of the seed, and (scene, opt
-state) round-trip bit-exactly through orbax, so the resumed run's final
+state) round-trip bit-exactly through utils/checkpoint, so the resumed run's final
 parameters must equal the uninterrupted run's."""
 
 import numpy as np
 import pytest
 
-from kylespathtracer_tpu.diff import inverse
+from kylespathtracer.diff import inverse
 
 KW = dict(
     num_spheres=2, steps=4, width=32, height=24, views=1, seed=3,
@@ -35,7 +35,7 @@ def test_kill_and_resume_matches_uninterrupted(tmp_path):
 
 
 def test_torn_checkpoint_pair_falls_back(tmp_path):
-    """A kill between the orbax step write and its meta sidecar must not
+    """A kill between the step file write and its meta sidecar must not
     poison resume: an unpaired step is ignored (falls back to the previous
     complete phase, or a fresh start)."""
     d = tmp_path / "ckpt"

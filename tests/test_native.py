@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from kylespathtracer_tpu.scene import sdf as sdf_mod
-from kylespathtracer_tpu.scene.scene import default_scene
-from kylespathtracer_tpu.utils import native
+from kylespathtracer.scene import sdf as sdf_mod
+from kylespathtracer.scene.scene import default_scene
+from kylespathtracer.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built (no toolchain)"

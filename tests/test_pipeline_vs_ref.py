@@ -4,11 +4,11 @@ GLSL math (the BASELINE correctness metric)."""
 import numpy as np
 import jax.numpy as jnp
 
-from kylespathtracer_tpu.cpu_reference import render_ref as rr
-from kylespathtracer_tpu.render.camera import Camera
-from kylespathtracer_tpu.render.pipeline import init_history, render_frame
-from kylespathtracer_tpu.scene import default_scene
-from kylespathtracer_tpu.utils.config import RenderConfig
+from kylespathtracer.cpu_reference import render_ref as rr
+from kylespathtracer.render.camera import Camera
+from kylespathtracer.render.pipeline import init_history, render_frame
+from kylespathtracer.scene import default_scene
+from kylespathtracer.utils.config import RenderConfig
 
 W, H = 48, 32
 LOC = (3.0, 2.0, -3.0)

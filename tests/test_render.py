@@ -5,11 +5,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from kylespathtracer_tpu.render import camera as cam_mod
-from kylespathtracer_tpu.render import gbuffer as gb_mod
-from kylespathtracer_tpu.render.pipeline import init_history, render_frame, render_image
-from kylespathtracer_tpu.scene import OBJ, default_scene
-from kylespathtracer_tpu.utils.config import RenderConfig
+from kylespathtracer.render import camera as cam_mod
+from kylespathtracer.render import gbuffer as gb_mod
+from kylespathtracer.render.pipeline import init_history, render_frame, render_image
+from kylespathtracer.scene import OBJ, default_scene
+from kylespathtracer.utils.config import RenderConfig
 
 SCENE = default_scene()
 CFG = RenderConfig(width=64, height=48)
@@ -17,7 +17,7 @@ CAM = cam_mod.Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))
 
 
 def test_ray_dirs_match_reference_formula():
-    from kylespathtracer_tpu.cpu_reference import glslref as ref
+    from kylespathtracer.cpu_reference import glslref as ref
 
     rd = np.asarray(cam_mod.ray_dirs(CAM, 64, 48))
     assert rd.shape == (48, 64, 3)
@@ -128,13 +128,13 @@ def test_miss_pixels_black_and_finite():
 def test_dual_mis_matches_unfused():
     """shade_passes (fused dual_mis) must produce exactly the channels the
     separate diffuse/specular passes produce — same seeds, same math."""
-    from kylespathtracer_tpu.render import gbuffer as gb_mod
-    from kylespathtracer_tpu.render.passes import (
+    from kylespathtracer.render import gbuffer as gb_mod
+    from kylespathtracer.render.passes import (
         diffuse_pass,
         shade_passes,
         specular_pass,
     )
-    from kylespathtracer_tpu.render.pipeline import init_history
+    from kylespathtracer.render.pipeline import init_history
 
     cfg = RenderConfig(width=48, height=32)
     scene = default_scene()
@@ -163,7 +163,7 @@ def test_no_history_matches_fresh_history():
     is numerically identical to rendering against a fresh zero history."""
     import dataclasses
 
-    from kylespathtracer_tpu.render.camera import Camera
+    from kylespathtracer.render.camera import Camera
 
     scene = default_scene()
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))

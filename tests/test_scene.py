@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from kylespathtracer_tpu.cpu_reference import glslref as ref
-from kylespathtracer_tpu.scene import default_scene, OBJ
-from kylespathtracer_tpu.scene import materials as mat
-from kylespathtracer_tpu.scene import sdf as sdf_mod
-from kylespathtracer_tpu.scene.scene import sphere_scene
+from kylespathtracer.cpu_reference import glslref as ref
+from kylespathtracer.scene import default_scene, OBJ
+from kylespathtracer.scene import materials as mat
+from kylespathtracer.scene import sdf as sdf_mod
+from kylespathtracer.scene.scene import sphere_scene
 
 RNG = np.random.default_rng(1)
 SCENE = default_scene()
@@ -147,7 +147,7 @@ class TestAnalyticBox:
         """The closed-form rounded-box (faces + edge cylinders + corner
         spheres) agrees with the reference sphere tracer on rays aimed at the
         box from inside the room; tangent grazers excepted."""
-        from kylespathtracer_tpu.scene import intersect as isect
+        from kylespathtracer.scene import intersect as isect
 
         rng = np.random.default_rng(0)
         n = 4000

@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from kylespathtracer_tpu.diff import softvis
-from kylespathtracer_tpu.scene.scene import sphere_scene
+from kylespathtracer.diff import softvis
+from kylespathtracer.scene.scene import sphere_scene
 
 
 def _setup(x0=0.0):
@@ -54,8 +54,8 @@ def test_soft_gradient_matches_finite_difference():
 
 def test_hard_visibility_gradient_is_zero():
     """The documented bias: the hard hit test gives no occluder gradient."""
-    from kylespathtracer_tpu.core import gmath
-    from kylespathtracer_tpu.scene import intersect as isect
+    from kylespathtracer.core import gmath
+    from kylespathtracer.scene import intersect as isect
 
     scene, hl, hn, ho = _setup()
 
@@ -107,9 +107,9 @@ def test_occluder_position_recovery_through_shadow():
 
 def test_soft_shadows_config_runs_through_pipeline():
     """config.soft_shadows routes through dual_mis and stays finite/diffable."""
-    from kylespathtracer_tpu.diff import inverse
-    from kylespathtracer_tpu.render.camera import Camera
-    from kylespathtracer_tpu.utils.config import RenderConfig
+    from kylespathtracer.diff import inverse
+    from kylespathtracer.render.camera import Camera
+    from kylespathtracer.utils.config import RenderConfig
 
     cfg = RenderConfig(width=32, height=24, soft_shadows=0.05)
     scene = sphere_scene([[0.0, 1.0, 6.0]], [1.0], [[0.6, 0.3, 0.2]])
@@ -132,10 +132,10 @@ def test_soft_shadows_keep_hard_occluders():
     soft render equals the hard render exactly. Without the gate, pixels
     whose shadow ray is blocked by the wall/box/ceiling get full direct
     light (the round-2 light-leak bug, ADVICE r2 #2)."""
-    from kylespathtracer_tpu.diff import inverse
-    from kylespathtracer_tpu.render.camera import Camera
-    from kylespathtracer_tpu.scene.scene import default_scene
-    from kylespathtracer_tpu.utils.config import RenderConfig
+    from kylespathtracer.diff import inverse
+    from kylespathtracer.render.camera import Camera
+    from kylespathtracer.scene.scene import default_scene
+    from kylespathtracer.utils.config import RenderConfig
 
     scene = default_scene()
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))

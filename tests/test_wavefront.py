@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kylespathtracer_tpu import Camera, RenderConfig
-from kylespathtracer_tpu.core import gmath, sampler
-from kylespathtracer_tpu.render import bsdf as bsdf_mod
-from kylespathtracer_tpu.render import wavefront
-from kylespathtracer_tpu.scene.scene import sphere_scene
-from kylespathtracer_tpu.scene.types import BSDF
+from kylespathtracer import Camera, RenderConfig
+from kylespathtracer.core import gmath, sampler
+from kylespathtracer.render import bsdf as bsdf_mod
+from kylespathtracer.render import wavefront
+from kylespathtracer.scene.scene import sphere_scene
+from kylespathtracer.scene.types import BSDF
 
 
 # ------------------------------------------------------------- sampler
